@@ -1,4 +1,4 @@
-// Native host-side graph builder for the TPU framework's data path.
+// Native host-side graph builder for the framework's data path.
 //
 // Role: the reference framework's scenario generator densifies a [K, A]
 // channel matrix in numpy (reference sim_src/env/env.py:144-196), which the
@@ -302,7 +302,7 @@ int sig_native_num_threads() {
 // Greedy randomized rounding — the host-native large-K scan
 // (reference sim_src/alg/sdp_solver.py:27-107).  The scan is sequential
 // pointer-chasing over the interference graph, which is CPU home turf:
-// the TPU formulations (fori scan / parallel wavefront) are latency- or
+// the device formulations (fori scan / parallel wavefront) are latency- or
 // gather-bound and cost minutes at K~1M, while this loop is sub-second.
 //
 // Inputs:

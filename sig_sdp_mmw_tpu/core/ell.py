@@ -3,7 +3,7 @@
 The dense [K, K] backend (:mod:`sig_sdp_mmw_tpu.core.problem`) is ideal up to
 a few thousand users; the reference's own scale tops out near K~1000 (SURVEY
 §0).  The north-star configs (BASELINE.json: 100k-1M links) need sparse
-state.  TPU-native sparse = **padded ELL**: every row stores exactly
+state.  The sparse container is **padded ELL**: every row stores exactly
 ``deg_pad`` (column, value) slots, padding with (0, 0.0) — a zero value
 kills the padded contribution in every gather-accumulate, so no masks are
 needed on the hot path and all shapes are static.
@@ -58,10 +58,9 @@ class EllState:
     h_max: jax.Array    # [Kp]
     mask: jax.Array     # [Kp] bool
     K: int = dataclasses.field(metadata=dict(static=True))
-    # Cached binary-search bounds, computed host-side at build time.  On a
-    # tunneled/remote device, pulling the ELL arrays back to host just to
-    # count degrees costs orders of magnitude more than the count itself;
-    # the builder already has the CSR matrices in host memory.  -1 = absent.
+    # Cached binary-search bounds, computed host-side at build time from the
+    # CSR matrices the builder already holds, so the search never pulls the
+    # device arrays back just to count degrees.  -1 = absent.
     lb_cache: int = dataclasses.field(default=-1, metadata=dict(static=True))
     ub_cache: int = dataclasses.field(default=-1, metadata=dict(static=True))
 
@@ -223,9 +222,11 @@ def build_st_csr(S_csr, Q_csr):
 
 def ell_from_scipy(S_csr, Q_csr, h_max, pad_rows_to: Optional[int] = None,
                    deg_pad: Optional[int] = None,
-                   dtype=np.float32) -> EllState:
+                   dtype=np.float32, host: bool = False) -> EllState:
     """Build the ELL state from the reference's CSR ``(S, Q, h_max)`` without
-    ever densifying — scalable to millions of links."""
+    ever densifying — scalable to millions of links.  ``host=True`` keeps
+    the leaves as numpy arrays (see ``ops.bcsr.bcsr_operands_from_state``)
+    for callers that shard them straight from the host."""
     import scipy.sparse
 
     S = S_csr.tocsr()
@@ -309,10 +310,9 @@ def ell_from_scipy(S_csr, Q_csr, h_max, pad_rows_to: Optional[int] = None,
     mask[:K] = True
 
     # Binary-search bounds from the host CSR — identical semantics to the
-    # array-based degree_bounds() fallback (which on a tunneled/remote device
-    # would pull every ELL array back to host just to count degrees).  The
-    # association pattern mirrors the q_* build exactly: both directions of
-    # the upper-triangular edges.
+    # array-based degree_bounds() fallback, without reading device arrays
+    # back.  The association pattern mirrors the q_* build exactly: both
+    # directions of the upper-triangular edges.
     Qu_pat = scipy.sparse.triu(Q, k=1).tocsr()
     Qb = (Qu_pat + Qu_pat.T).tocsr()
     Qb.data = np.ones_like(Qb.data)
@@ -325,15 +325,16 @@ def ell_from_scipy(S_csr, Q_csr, h_max, pad_rows_to: Optional[int] = None,
     # between cached and array-fallback states; degree_bounds() applies the
     # Z>=2 clamp (simplex encoding is singular at Z=1) at read time.
 
+    asarray = np.asarray if host else jnp.asarray
     return EllState(
-        s_cols=jnp.asarray(s_cols), s_vals=jnp.asarray(s_vals),
-        st_cols=jnp.asarray(st_cols), st_vals=jnp.asarray(st_vals),
-        s_xw=jnp.asarray(s_xw), st_xw=jnp.asarray(st_xw),
-        a_i=jnp.asarray(a_i), a_j=jnp.asarray(a_j), a_mask=jnp.asarray(a_mask),
-        q_cols=jnp.asarray(q_cols), q_eidx=jnp.asarray(q_eidx),
-        q_mask=jnp.asarray(q_mask), q_gain=jnp.asarray(q_gain),
-        diag_S=jnp.asarray(diag_S), h_max=jnp.asarray(hm),
-        mask=jnp.asarray(mask), K=K, lb_cache=lb_cache, ub_cache=ub_cache)
+        s_cols=asarray(s_cols), s_vals=asarray(s_vals),
+        st_cols=asarray(st_cols), st_vals=asarray(st_vals),
+        s_xw=asarray(s_xw), st_xw=asarray(st_xw),
+        a_i=asarray(a_i), a_j=asarray(a_j), a_mask=asarray(a_mask),
+        q_cols=asarray(q_cols), q_eidx=asarray(q_eidx),
+        q_mask=asarray(q_mask), q_gain=asarray(q_gain),
+        diag_S=asarray(diag_S), h_max=asarray(hm),
+        mask=asarray(mask), K=K, lb_cache=lb_cache, ub_cache=ub_cache)
 
 
 def ell_from_sig_state(state) -> EllState:

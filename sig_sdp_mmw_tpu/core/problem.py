@@ -3,7 +3,7 @@
 The reference threads a ``state = (S_gain csr, Q_asso csr, h_max ndarray)``
 tuple through every layer (``sim_src/env/env.py:168-196`` produces it;
 ``sim_src/alg/mmw.py:26-41`` and ``sim_src/alg/sdp_solver.py:27-41`` consume
-it).  On TPU, mutable scipy CSR is replaced by a static-shape, padded,
+it).  Here, mutable scipy CSR is replaced by a static-shape, padded,
 mask-aware dense container registered as a JAX pytree:
 
 * ``S``      [Kp, Kp] float — interference gain matrix.  ``S[k, j]`` is the
@@ -78,7 +78,7 @@ class SigState:
 def state_from_arrays(S, Q, h_max, pad_to: Optional[int] = None,
                       dtype=jnp.float32) -> SigState:
     """Build a :class:`SigState` from dense [K,K] arrays, padding to ``pad_to``
-    (default: next multiple of 8; use 128 multiples for MXU-aligned buckets)."""
+    (default: next multiple of 8)."""
     S = np.asarray(S)
     K = S.shape[0]
     Kp = pad_to if pad_to is not None else _round_up(K, 8)

@@ -1,4 +1,4 @@
-"""WTSN scenario generator + evaluator, TPU-native.
+"""WTSN scenario generator + evaluator, vectorized in JAX.
 
 Re-implements the behavior of the reference environment
 (``sim_src/env/env.py``) as pure, jittable, ``vmap``-able functions over a
@@ -260,7 +260,7 @@ class WirelessEnv:
         return state_from_arrays(np.asarray(S), np.asarray(Q), np.asarray(h_max),
                                  pad_to=pad)
 
-    # Reference name (``env.py:168``); returns the TPU-native state container.
+    # Reference name (``env.py:168``); returns the static-shape state container.
     def generate_S_Q_hmax(self, real: bool = False) -> SigState:
         return self.generate_state(real=real)
 

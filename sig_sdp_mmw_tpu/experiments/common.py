@@ -34,12 +34,16 @@ def experiment_args(description: str, **extra_defaults):
 
 
 def setup(args):
-    """Apply platform choice (jax is preloaded in this image — env vars are
-    ignored; the config API must be used) and shrink sweeps in smoke mode."""
+    """Apply the platform choice through the config API (it also works when
+    jax was imported before the environment variables could be read), turn
+    on the persistent compilation cache, and shrink sweeps in smoke mode."""
     import jax
+
+    from sig_sdp_mmw_tpu.utils.runtime import enable_compile_cache
 
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
+    enable_compile_cache()
     if args.smoke:
         args.repeat = 1
         args.cells = [c for c in args.cells if c <= 5] or [5]

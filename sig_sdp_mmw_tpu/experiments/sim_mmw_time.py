@@ -4,7 +4,7 @@ Parity with ``sim_script/journal_version/sim_mmw_time.py``: per (cell, seed)
 logs mean [all_it, dual, loss, expm, xavg, rounding] microseconds under
 ``mmw150-time-<cell>-<rho*1e4>`` using the profiled solver (reference metric
 keys, ``sim_mmw_time.py:47-62``).  Also logs the fused-loop per-iteration
-time under ``mmw150-fused-...`` — the TPU fast path the reference cannot
+time under ``mmw150-fused-...`` — the fused fast path the reference cannot
 express (its phases are separately timed numpy calls; ours fuse into one
 compiled loop).
 """

@@ -7,7 +7,7 @@ the feasibility SDP
     sum_j S̃_kj X_kj (Z-1)/Z <= h_max_k - S_sum_k/Z
 
 to the SCS interior C library.  cvxpy/SCS is not available in this image, so
-the oracle is re-built TPU-native as a fully jitted ADMM consensus split
+the oracle is re-built in JAX as a fully jitted ADMM consensus split
 
     minimize  I_PSD(X) + I_poly(Y)   s.t.  X = Y
 

@@ -1,6 +1,6 @@
 """Matrix-Multiplicative-Weights SDP feasibility solver — the framework core.
 
-TPU-native re-design of the reference solver (``sim_src/alg/mmw.py``): the
+Compiled re-design of the reference solver (``sim_src/alg/mmw.py``): the
 whole ``nit``-iteration dual/loss/primal loop is ONE jitted ``lax.fori_loop``
 over a :class:`MMWCarry` pytree.  Faithful algorithm semantics
 (``mmw.py:44-222``), hardware-native execution:
@@ -9,7 +9,7 @@ over a :class:`MMWCarry` pytree.  Faithful algorithm semantics
   million-link scale lives in :mod:`sig_sdp_mmw_tpu.parallel`);
 * ``scipy.sparse.linalg.expm_multiply`` (``mmw.py:228``) -> fixed-iteration
   batched-Lanczos :func:`sig_sdp_mmw_tpu.ops.expm.lanczos_expm_multiply`
-  whose per-step cost is a [K,K]@[K,D] MXU matmul, with a global log-scale so
+  whose per-step cost is a [K,K]@[K,D] matmul, with a global log-scale so
   the trace-normalized Gibbs state is exact in fp32;
 * ``Z`` is a TRACED scalar and the sketch width is padded to a static
   ``D_pad`` with masked columns, so one compilation serves every probe of the
@@ -253,7 +253,7 @@ def make_mmw_phase_fns(*, nit: int, eta: float, rank_radio: int, D_pad: int,
 
     Mirrors the reference's phase bracketing (``mmw.py:124-197``: "mmw_dual",
     "mmw_loss", "mmw_expm" timer keys) so ``sim_mmw_time``-style experiments
-    measure the same phases on TPU.  The fused :func:`mmw_solve` is the fast
+    measure the same phases on the device.  The fused :func:`mmw_solve` is the fast
     path; this one trades fusion for observability.
     """
     if lanczos_m is None:

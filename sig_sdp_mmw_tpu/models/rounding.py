@@ -2,7 +2,7 @@
 independent feasibility checker.
 
 Faithful semantics of the reference greedy rounding
-(``sim_src/alg/sdp_solver.py:18-107``), re-shaped for TPU:
+(``sim_src/alg/sdp_solver.py:18-107``), re-shaped for compiled execution:
 
 * one attempt is a jitted ``lax.fori_loop`` over users (in decreasing
   ``||gX_k||`` order); the per-user slot scan — the reference's nested
@@ -11,7 +11,7 @@ Faithful semantics of the reference greedy rounding
   followed by "first feasible in preference order" selection;
 * the reference's up-to-10 serial retries (``sdp_solver.py:18-25``) are a
   ``vmap`` over attempt keys — attempt-parallelism is semantically faithful
-  (independent randomness) and TPU-friendly;
+  (independent randomness) and batches on the device;
 * ``Z`` is traced; ``Z_pad`` (slot-axis padding) is static so one executable
   serves the whole binary search.
 

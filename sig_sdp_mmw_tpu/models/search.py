@@ -11,7 +11,7 @@ one fully-jitted solve+rounding).  Faithful to the reference
 * timing telemetry under the reference's metric keys (``bs_set_bounds``,
   ``bs_search``, ``bs_search_per_it``).
 
-TPU extension: because Z is a traced scalar in our solvers, every probe hits
+Extension: because Z is a traced scalar in our solvers, every probe hits
 the same compiled executable — the reference pays a fresh scipy pipeline per
 probe.  A speculative parallel probe mode (all candidate Z at once via vmap)
 lives in :mod:`sig_sdp_mmw_tpu.parallel.batch`.

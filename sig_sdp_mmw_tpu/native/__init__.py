@@ -1,6 +1,6 @@
 """Native (C++) host-side components.
 
-The TPU compute path is XLA/Pallas; this package is the native *runtime
+The device compute path is XLA; this package is the native *runtime
 around it* — currently the multithreaded sparse graph builder
 (:mod:`csrc/sig_native.cpp`) that replaces the scipy KD-tree data path of
 :mod:`sig_sdp_mmw_tpu.env.large` at production scale.

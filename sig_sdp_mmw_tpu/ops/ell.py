@@ -6,13 +6,10 @@ and inside ``expm_multiply``):
 * :func:`ell_spmm` — pure-XLA gather + weighted segment reduction.  XLA
   lowers the row gather to a dynamic-gather loop; fine at moderate sizes and
   fully differentiable/shardable.
-* For large K the block-sparse MXU formulation wins decisively
-  (SPMM_BENCH.json: 2.1x at K=100k): :func:`sig_sdp_mmw_tpu.ops.bcsr.
-  bcsr_spmm` (XLA) and :func:`...bcsr_spmm_pallas` (Pallas DMA pipeline).
-  A row-gather Pallas kernel used to live here but per-row dynamic VMEM
-  gathers do not lower on TPU Mosaic ("Cannot do int indexing") — the
-  gather formulation is fundamentally the wrong shape for the hardware, so
-  it was removed in favor of the block kernels.
+* The block-sparse alternative is :func:`sig_sdp_mmw_tpu.ops.bcsr.bcsr_spmm`
+  (one batched ``dot_general`` over dense blocks), which the large-K solver
+  uses.  Which of the two moves fewer bytes per useful FLOP on a given
+  device, at a given block fill, is measured, not assumed.
 
 ``out[k, :] = sum_d vals[k, d] * V[cols[k, d], :]``.
 """

@@ -3,11 +3,11 @@
 The reference computes ``expm_multiply(L/2, randn(K, D))`` with scipy's
 Al-Mohy–Higham algorithm (``sim_src/alg/mmw.py:224-229``), whose adaptive
 1-norm estimation and scaling/squaring is data-dependent control flow that
-cannot be compiled.  The TPU-native replacement is a **batched Lanczos
+cannot be compiled.  The replacement here is a **batched Lanczos
 (Krylov) approximation with a fixed iteration count**:
 
 * all D sketch columns run their Lanczos recurrences simultaneously, so each
-  step is one K×K (or sparse) matvec applied to a [K, D] block — an MXU
+  step is one K×K (or sparse) matvec applied to a [K, D] block — one
   matmul, not D sequential solves;
 * the m×m tridiagonal exponentials are computed via batched ``eigh`` in the
   tiny Krylov space;
@@ -30,6 +30,11 @@ from typing import Callable, Tuple
 import jax
 import jax.numpy as jnp
 
+# Full f32 products: with default precision a GPU runs f32 contractions in
+# TF32 (10-bit mantissa), which moved the K=300 solution measurably away
+# from the CPU's (chip_smoke.py's GPU-vs-CPU check).
+_HIGHEST = jax.lax.Precision.HIGHEST
+
 MatVec = Callable[[jax.Array], jax.Array]  # [K, D] -> [K, D], symmetric A
 
 
@@ -45,8 +50,8 @@ def _expm_e1_batched_sym(T: jax.Array, norm_bound: float,
                          taylor_order: int = 12) -> Tuple[jax.Array, jax.Array]:
     """``exp(T - sigma I) @ e1`` for a batch of small symmetric matrices.
 
-    TPU-friendly alternative to batched ``eigh`` (QR iterations serialize
-    badly on the MXU): a *static* scaling-and-squaring with a global
+    Matmul-only alternative to batched ``eigh`` (whose QR iterations are
+    sequential, data-dependent work): a *static* scaling-and-squaring with a global
     Gershgorin shift.  ``norm_bound`` is a static spectral-norm bound that
     fixes the squaring count at trace time — no data-dependent control flow.
 
@@ -111,9 +116,10 @@ def lanczos_tridiag(matvec: MatVec, V: jax.Array, m: int, reorth: bool = True
         alpha = jnp.sum(q * w, axis=0)                        # [D]
         w = w - alpha[None, :] * q
         if reorth:
-            proj = jnp.einsum("mkd,kd->md", Q, w)             # [m, D]
+            proj = jnp.einsum("mkd,kd->md", Q, w,
+                              precision=_HIGHEST)             # [m, D]
             proj = jnp.where((jnp.arange(m) <= j)[:, None], proj, 0.0)
-            w = w - jnp.einsum("mkd,md->kd", Q, proj)
+            w = w - jnp.einsum("mkd,md->kd", Q, proj, precision=_HIGHEST)
         beta = jnp.linalg.norm(w, axis=0)                     # [D]
         # Happy breakdown: invariant subspace found -> stop extending.
         alive = beta > 1e-8 * jnp.maximum(beta0, 1e-20)
@@ -167,17 +173,18 @@ def lanczos_expm_multiply(matvec: MatVec, V: jax.Array, m: int,
         raise ValueError(
             f"small_method must be 'taylor_ss' or 'eigh', got {small_method!r}")
     if small_method == "taylor_ss":
-        # Matmul-only small expm: static Taylor scaling-and-squaring (fast
-        # path on TPU; see _expm_e1_batched_sym).
+        # Matmul-only small expm: static Taylor scaling-and-squaring (see
+        # _expm_e1_batched_sym).
         nb = norm_bound if norm_bound is not None else float(m)
         coeff, sigma = _expm_e1_batched_sym(T, nb)
     else:
         theta, U = jnp.linalg.eigh(T)                         # [D, m], [D, m, m]
         sigma = jnp.max(theta)                                # global log-scale
         w1 = U[:, 0, :]                                       # e1^T U -> [D, m]
-        coeff = jnp.einsum("dmn,dn,dn->dm", U, jnp.exp(theta - sigma), w1)
+        coeff = jnp.einsum("dmn,dn,dn->dm", U, jnp.exp(theta - sigma), w1,
+                           precision=_HIGHEST)
     coeff = coeff * beta0[:, None]
-    F = jnp.einsum("mkd,dm->kd", Q, coeff)
+    F = jnp.einsum("mkd,dm->kd", Q, coeff, precision=_HIGHEST)
     return F, sigma
 
 

@@ -1,6 +1,6 @@
 """Fixed-iteration Lanczos extreme-eigenvalue estimation.
 
-TPU-native replacement for the reference's ARPACK ``eigsh(..., which='SA'/'LA')``
+Compiled replacement for the reference's ARPACK ``eigsh(..., which='SA'/'LA')``
 calls (duality-gap lower bound ``sim_src/alg/mmw.py:115``, X sanity check
 ``mmw.py:204``, spectral baseline ``sim_src/alg/sdp_solver.py:181``): a
 jittable m-step Lanczos whose Ritz values bracket the spectrum.  No adaptive

@@ -1,13 +1,14 @@
 """Randomized low-rank factorization (subspace iteration).
 
-TPU-native replacement for ARPACK ``svds`` in the reference's final
+Compiled replacement for ARPACK ``svds`` in the reference's final
 factorization ``svds(X_avgd, k) -> X_half = U sqrt(s)``
 (``sim_src/alg/mmw.py:213-216``).  Jittable, fixed iteration count, all
-matmul/QR — MXU-friendly.
+matmul/QR.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import jax
@@ -25,18 +26,21 @@ def randomized_symmetric_lowrank(A: jax.Array, rank: int, key: jax.Array,
     """
     K = A.shape[0]
     r = min(rank + oversample, K)
+    # Full f32 products: a GPU's default TF32 contractions moved the K=300
+    # factor by 1e-2 against the CPU's (chip_smoke.py's GPU-vs-CPU check).
+    mm = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
     omega = jax.random.normal(key, (K, r), dtype=A.dtype)
-    Y = A @ omega
+    Y = mm(A, omega)
     Q, _ = jnp.linalg.qr(Y)
     for _ in range(iters):
-        Y = A @ (A @ Q)
+        Y = mm(A, mm(A, Q))
         Q, _ = jnp.linalg.qr(Y)
-    B = Q.T @ (A @ Q)                       # [r, r] symmetric projection
+    B = mm(Q.T, mm(A, Q))                   # [r, r] symmetric projection
     B = 0.5 * (B + B.T)
     w, V = jnp.linalg.eigh(B)               # ascending
     order = jnp.argsort(-jnp.abs(w))[:rank]
     w = w[order]
-    U = Q @ V[:, order]
+    U = mm(Q, V[:, order])
     return U, jnp.abs(w)
 
 

@@ -1,8 +1,8 @@
-"""Multi-host initialization + mesh construction over ICI/DCN.
+"""Multi-host initialization + mesh construction.
 
 The reference is single-process (SURVEY §2.6/§5.8: no MPI/NCCL/Gloo
-anywhere).  The TPU-native equivalent is ``jax.distributed`` + XLA
-collectives: within a slice, collectives ride ICI; across hosts, DCN.  This
+anywhere).  The equivalent here is ``jax.distributed`` + XLA collectives
+(NCCL on GPUs: NVLink within a host, the network across hosts).  This
 module is the thin launcher layer: call :func:`init_distributed` once per
 host process (coordinator address from the environment or args), then build
 a global (batch, graph) mesh over all devices with
@@ -10,8 +10,8 @@ a global (batch, graph) mesh over all devices with
 sharding-annotation driven and needs no further changes (validated on the
 virtual multi-device mesh in tests/test_parallel.py).
 
-Single-host multi-chip needs no initialization at all — ``jax.devices()``
-already enumerates local chips.
+Single-host multi-device needs no initialization at all — ``jax.devices()``
+already enumerates the local devices.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ def init_distributed(coordinator_address: Optional[str] = None,
     """Initialize multi-host JAX.  No-ops when running single-process.
 
     Arguments default to the standard env vars (JAX_COORDINATOR_ADDRESS,
-    JAX_NUM_PROCESSES, JAX_PROCESS_ID) or TPU pod metadata when present.
+    JAX_NUM_PROCESSES, JAX_PROCESS_ID) when present.
     """
     addr = coordinator_address or os.environ.get("JAX_COORDINATOR_ADDRESS")
     n = num_processes or _env_int("JAX_NUM_PROCESSES")

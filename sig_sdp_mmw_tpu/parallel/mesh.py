@@ -2,13 +2,16 @@
 
 The reference is single-process numpy (SURVEY §2.6: no parallelism of any
 kind); its scale axes are (a) outer for-loops over independent scenarios and
-(b) CSR sparsity.  The TPU-native equivalents (SURVEY §5.7-5.8):
+(b) CSR sparsity.  The equivalents here (SURVEY §5.7-5.8):
 
 * ``batch`` mesh axis — independent scenario instances (the seed loops of
-  ``sim_script/journal_version/sim_all_bler.py:30-31``) sharded across chips;
+  ``sim_script/journal_version/sim_all_bler.py:30-31``) sharded across devices;
 * ``graph`` mesh axis — the user/link axis K of the state matrices
-  row-partitioned across chips; XLA GSPMD inserts the psum/all-gather
-  collectives for the Lanczos matvecs and constraint reductions over ICI.
+  row-partitioned across devices; XLA GSPMD inserts the psum/all-gather
+  collectives for the Lanczos matvecs and constraint reductions.
+
+The mesh is a logical grid over ``jax.devices()``; nothing assumes a
+physical topology (every GPU of a host reaches every other over NVLink).
 """
 
 from __future__ import annotations

@@ -2,12 +2,12 @@
 
 The reference wraps hot functions with ``line_profiler`` behind a global
 enabler (``sim_src/util.py:91-110``).  ``line_profiler`` measures Python
-lines — meaningless for compiled TPU code — so here:
+lines — meaningless for compiled device code — so here:
 
 * :func:`profile` keeps the reference's decorator surface but uses cProfile
   (host-side orchestration cost), gated by the same
   :data:`GLOBAL_PROF_ENABLER`;
-* :func:`device_trace` wraps ``jax.profiler.trace`` — the TPU-native way to
+* :func:`device_trace` wraps ``jax.profiler.trace`` — the way to
   see per-op device time (open the trace in TensorBoard / Perfetto);
 * :func:`annotate` wraps ``jax.profiler.TraceAnnotation`` for phase markers
   that show up inside device traces (the analogue of the reference's

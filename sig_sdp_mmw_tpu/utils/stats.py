@@ -1,6 +1,6 @@
 """Instrumentation: phase timers, in-memory metric tables, debug prints.
 
-TPU-native re-design of the reference's ``STATS_OBJECT`` mixin
+Re-design of the reference's ``STATS_OBJECT`` mixin
 (``sim_src/util.py:114-217``).  The metric *keys* and on-disk table format are
 kept identical so the reference's benchmark tooling carries over:
 
@@ -11,7 +11,7 @@ kept identical so the reference's benchmark tooling carries over:
   (``sim_src/util.py:136-147``);
 * microsecond tic/tim timer pairs (``sim_src/util.py:201-217``).
 
-Differences from the reference (deliberate, TPU-aware):
+Differences from the reference (deliberate, for asynchronous devices):
 
 * timers synchronize device work — ``tim()`` calls
   ``jax.block_until_ready`` on an optional handle so a phase's time includes

@@ -1,12 +1,13 @@
 """Test harness config: force CPU backend with an 8-device virtual mesh so
-sharding tests run without TPU hardware (SURVEY.md §4.5 pattern)."""
+sharding tests run without accelerator hardware (SURVEY.md §4.5
+pattern)."""
 
 import os
 
 os.environ["JAX_PLATFORMS"] = "cpu"
 os.environ["JAX_ENABLE_X64"] = "true"
 
-# A pytest plugin may have imported jax already (before this conftest), in
+# jax may have been imported already (before this conftest), in
 # which case the env vars above are ignored; the config API still works as
 # long as the backend has not been initialized yet.
 import jax

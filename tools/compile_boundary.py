@@ -1,11 +1,10 @@
-"""Locate the single-chip compile/memory boundary of the block-native MMW
+"""Locate the one-device compile/memory boundary of the block-native MMW
 solver along the K (links) axis.
 
 For each cell size, build the ELL state + BCSR operands once, then AOT-lower
 and compile the nit-iteration solver, recording XLA's temp/argument memory
-analysis (or the failure).  No solve is run — this maps where the 16 GB HBM
-chip stops taking the program, feeding the MILLION_LINK.json failure
-analysis with numbers instead of guesses.
+analysis (or the failure).  No solve is run — this maps where the device's
+memory stops taking the program, with numbers instead of guesses.
 """
 
 import argparse

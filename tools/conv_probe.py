@@ -1,7 +1,7 @@
 """Quick convergence probe at K=100k: does the block-native solve reach the
 reference's ub<=0.08 plateau (eta=0.04, nit=625 — sim_convergence_rho.py
 spec), and does bf16 block storage floor it?  Informs the million-link
-north-star configuration before spending hours of TPU on it.
+north-star configuration before spending hours of accelerator time on it.
 """
 
 import functools

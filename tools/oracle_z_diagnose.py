@@ -22,7 +22,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-if "--tpu" not in sys.argv:
+if "--accelerator" not in sys.argv:
     jax.config.update("jax_platforms", "cpu")
 
 import numpy as np

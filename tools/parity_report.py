@@ -1,4 +1,4 @@
-"""Statistical parity report: reference pipeline vs TPU-native pipeline.
+"""Statistical parity report: reference pipeline vs this pipeline.
 
 Runs BOTH full pipelines (scenario -> binary search + MMW -> rounding ->
 BLER evaluation) across an ensemble of seeds and compares the distributions
@@ -13,7 +13,7 @@ ours runs on whatever platform is selected), each dumping raw rows to JSON:
     python tools/parity_report.py --side ref  --seeds 100 --cells 5 10 15 \
         --out parity_rows_ref.json
     python tools/parity_report.py --side ours --seeds 100 --cells 5 10 15 \
-        --platform tpu --out parity_rows_ours.json
+        --platform gpu --out parity_rows_ours.json
     python tools/parity_report.py --report parity_rows_ref.json \
         parity_rows_ours.json            # writes PARITY.md
 """
@@ -111,7 +111,7 @@ def write_report(ref_rows, ours_rows, meta, path):
 
     cells = sorted({r["cell"] for r in ref_rows})
     lines = [
-        "# PARITY — reference vs TPU-native pipeline (ensemble statistics)",
+        "# PARITY — reference vs this pipeline (ensemble statistics)",
         "",
         f"{meta['seeds']} seeds per cell size, rho={RHO}, MMW "
         f"nit={meta['nit']}, eta={meta['eta']}; both pipelines end-to-end "
@@ -165,7 +165,7 @@ def main():
     ap.add_argument("--cells", type=int, nargs="*", default=[5, 10, 15])
     ap.add_argument("--nit", type=int, default=150)
     ap.add_argument("--eta", type=float, default=0.04)
-    ap.add_argument("--platform", default="cpu", choices=["cpu", "tpu"])
+    ap.add_argument("--platform", default="cpu", choices=["cpu", "gpu"])
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 

@@ -2,7 +2,7 @@
 
 Times each stage of ops/bcsr.py::bcsr_operands_from_state separately so the
 native-builder effort targets the real long pole.  Runs entirely on the host
-CPU (JAX_PLATFORMS=cpu) — safe to run while the TPU is busy.
+CPU (JAX_PLATFORMS=cpu) — it needs no accelerator.
 
 Usage: python tools/profile_bcsr_build.py [cell]   (cell=183 -> K~100k,
 cell=580 -> K~1M, the MILLION_LINK_E2E config)
@@ -91,12 +91,9 @@ def main(cell=183):
     tick("q edge layout", q_layout)
 
     def cast_bf16():
-        import jax
-        cpu = jax.devices("cpu")[0]
-        x = jax.device_put(s_vals, cpu)
         import ml_dtypes
-        return jax.jit(lambda x: x.astype(ml_dtypes.bfloat16))(x)
-    tick("bf16 cast (XLA cpu)", cast_bf16)
+        return s_vals.astype(ml_dtypes.bfloat16)
+    tick("bf16 cast (numpy)", cast_bf16)
 
 
 if __name__ == "__main__":

@@ -65,8 +65,10 @@ def main(cell=100, rho=75e-4, seed=0, nit=30, eta=0.05, block=128,
     bb = block if isinstance(block, int) else block[0]
     unit = bb * graph
     nr = ((K + unit - 1) // unit) * unit
-    ell = ell_from_scipy(S, Q, h, pad_rows_to=nr)
-    ops = bcsr_operands_from_state(S, Q, block=block, pad_rows_to=nr)
+    # Host (numpy) leaves: each device receives only its own slice.
+    ell = ell_from_scipy(S, Q, h, pad_rows_to=nr, host=True)
+    ops = bcsr_operands_from_state(S, Q, block=block, pad_rows_to=nr,
+                                   host=True)
     rec["phases_s"]["build"] = round(time.time() - t0, 1)
     print(f"build: K={K} nnz={S.nnz} Kb={ops.s_blocks.Kb} "
           f"[{rec['phases_s']['build']}s]")
@@ -148,9 +150,8 @@ def main(cell=100, rho=75e-4, seed=0, nit=30, eta=0.05, block=128,
           f"[{rec['phases_s']['solve_single']}s]")
 
     # End-to-end: round the SHARDED solve's factor, verify on host CSR.
-    # The greedy scan runs in the native C++ loop on the gathered factor —
-    # sub-second at any K (the r4 sharded run spent 1522 s scanning on the
-    # virtual mesh; the scan is sequential host work, not mesh work).
+    # The greedy scan runs in the native C++ loop on the gathered factor:
+    # it is sequential host work, not mesh work.
     from sig_sdp_mmw_tpu.models.rounding_ell import rounding_native_csr
 
     t0 = time.time()
